@@ -1,10 +1,11 @@
 // Native host runtime for tpu_debruijn: ASCII<->2-bit codec + FASTA/FASTQ IO.
 //
-// This is the TPU build's counterpart of the reference's native layer
-// (/root/reference/src/bitops_avx2.rs: AVX2 convert_bases + pack_32_bases,
-// wired into DnaString::from_acgt_bytes, dna_string.rs:228-245).  Written
-// as portable C++ that the compiler auto-vectorizes (-O3 -march=native);
-// exposed to Python via ctypes (no pybind11 in this image).
+// This is the host counterpart of the reference's native layer
+// (src/bitops_avx2.rs: AVX2 convert_bases + pack_32_bases, wired into
+// DnaString::from_acgt_bytes, dna_string.rs:228-245).  Written as portable
+// C++ that the compiler auto-vectorizes (-O3, no -march=native, so the
+// library runs on any x86-64 host); exposed to Python via ctypes.
+// tpu_debruijn/io/native.py compiles it at first use.
 //
 // Functions
 //   db_ascii_to_codes  : ASCII bytes -> 2-bit codes, returns invalid count
@@ -71,8 +72,8 @@ void db_rc_codes(const uint8_t* codes, int64_t n, uint8_t* out) {
 
 // ---------------------------------------------------------------------------
 // FASTA/FASTQ scanning (host IO; the reference has no file IO — callers
-// pass byte buffers — but a production TPU pipeline needs a fast reader
-// to keep the device fed).
+// pass byte buffers — but a device pipeline needs a fast reader to keep
+// the device fed).
 // ---------------------------------------------------------------------------
 
 // Scan a FASTA ('>') or FASTQ ('@') text buffer.  Fills (seq_start, seq_len)

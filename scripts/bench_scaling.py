@@ -5,10 +5,10 @@ Runs the full SPMD step (per-device MSP scan -> all_to_all bucket exchange
 fixed per-device workload while growing the mesh, and reports throughput
 plus weak-scaling efficiency vs the 1-device run.
 
-On a single-chip environment this exercises a *virtual CPU mesh*
-(XLA_FORCE_HOST_PLATFORM_DEVICE_COUNT); on a real multi-chip slice run it
-as-is under the default backend and the same shard_map program scales over
-ICI (the collective pattern is identical; see parallel/shard.py).
+By default this exercises a *virtual CPU mesh*
+(XLA_FORCE_HOST_PLATFORM_DEVICE_COUNT); with JAX_REAL=1 the same
+shard_map program runs over the real devices, e.g. four GPUs joined by
+NVLink (the collective pattern is identical; see parallel/shard.py).
 
 Usage:
     python scripts/bench_scaling.py                # CPU mesh, 1/2/4/8
@@ -29,13 +29,14 @@ if not os.environ.get("JAX_REAL"):
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    cache = os.path.join(_REPO, ".jax_cache_cpu")
+    cache = ".jax_cache_cpu"
 else:
     import jax
 
-    cache = os.path.join(_REPO, ".jax_cache")
-jax.config.update("jax_compilation_cache_dir", cache)
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    cache = ".jax_cache"
+from tpu_debruijn import compile_cache
+
+compile_cache.configure(cache)
 
 import numpy as np
 import jax.numpy as jnp

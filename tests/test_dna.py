@@ -199,8 +199,8 @@ def test_seq_slice_kmers_match_owned(rng):
 
 
 def test_packed_seqset_density_and_roundtrip(rng):
-    """PackedSeqSet stores 2-bit packed words (dna_string.rs:72 parity,
-    VERDICT r3 item 6): resident storage is ~4x smaller than uint8 codes
+    """PackedSeqSet stores 2-bit packed words (dna_string.rs:72 parity):
+    resident storage is ~4x smaller than uint8 codes
     and every accessor matches the unpacked truth."""
     from tpu_debruijn.dna import PackedSeqSet
 

@@ -324,7 +324,7 @@ def test_stitch_flat_matches_naive(rng):
 
 
 def test_million_node_combine_and_stitch_fast(rng):
-    """VERDICT r1: 1M-unitig combine + stitch must be vectorized (seconds,
+    """1M-unitig combine + stitch must be vectorized (seconds,
     not the minutes a per-node Python loop takes)."""
     import time
 
@@ -363,7 +363,7 @@ def test_million_node_combine_and_stitch_fast(rng):
 
 
 def test_max_path_beam_branchy_bubble(rng):
-    """Beam search on a BRANCHY graph (VERDICT r1 item 9): a bubble — two
+    """Beam search on a BRANCHY graph: a bubble — two
     alternative middles between shared flanks — must resolve to the
     higher-coverage branch, and the beam must consider both."""
     k = 15

@@ -136,7 +136,7 @@ NB = 4096  # bulk rep count (reference runs 10,000/type, kmer.rs:1012-1164)
 
 @pytest.mark.parametrize("k", KS)
 def test_kmer_ops_bulk_invariants(k, rng):
-    """Vectorized high-rep sweep (VERDICT r1 item 9): every limb op checked
+    """Vectorized high-rep sweep: every limb op checked
     against base-matrix semantics in pure numpy over NB random kmers —
     no big-int loop, so reps are cheap."""
     spec = KmerSpec(k)

@@ -1,4 +1,4 @@
-"""Multi-process multihost exercise (VERDICT r1 item 6).
+"""Multi-process multihost exercise.
 
 Two real OS processes under ``jax.distributed.initialize`` (CPU backend,
 4 virtual devices each -> an 8-device global mesh with Gloo collectives)
@@ -21,23 +21,22 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = r"""
 import json, os, sys
 pid = int(sys.argv[1]); port = sys.argv[2]; outp = sys.argv[3]
+repo = sys.argv[4]
 os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
 import jax
 jax.config.update("jax_platforms", "cpu")
-# PRIVATE per-process cache dir: both workers compile the same programs
-# at the same time, and concurrent writes of the same entry to a shared
-# cache dir corrupt it — the parent (and later tests) then segfault
-# deserializing/compiling (repro'd as full-suite crashes in whatever big
-# compile followed this test).  Never share a compile cache between
-# concurrently-running processes.
-jax.config.update("jax_compilation_cache_dir", f"/tmp/mh_cache_{pid}")
-jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-sys.path.insert(0, "/root/repo")
+sys.path.insert(0, repo)
 # distributed bootstrap MUST precede anything that initializes the XLA
-# backend, including the tpu_debruijn import (its kernels module probes
-# the default backend)
+# backend, including the tpu_debruijn import (module-level jnp constants)
 jax.distributed.initialize(coordinator_address=f"127.0.0.1:{port}",
                            num_processes=2, process_id=pid)
+# PRIVATE per-rank cache dir: both workers compile the same programs at
+# the same time, and concurrent writes of the same entry to a shared
+# cache dir corrupt it — the parent (and later tests) then segfault
+# deserializing/compiling (repro'd as full-suite crashes in whatever big
+# compile followed this test).
+from tpu_debruijn import compile_cache
+compile_cache.configure(f".jax_cache_cpu_rank{pid}")
 from tpu_debruijn.parallel.multihost import (
     assemble_multiprocess, local_read_slice,
 )
@@ -103,7 +102,8 @@ def test_two_process_assembly_equals_single(tmp_path):
     outs = [tmp_path / f"out{i}.json" for i in range(2)]
     procs = [
         subprocess.Popen(
-            [sys.executable, str(worker), str(i), str(port), str(outs[i])],
+            [sys.executable, str(worker), str(i), str(port), str(outs[i]),
+             REPO],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, cwd=REPO,
         )
         for i in range(2)

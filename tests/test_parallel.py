@@ -11,11 +11,13 @@ from tpu_debruijn.graph import from_compress_output
 from tpu_debruijn.oracle import ref as O
 from tpu_debruijn.parallel import assemble_sharded, make_mesh
 
+import os
+
 import jax
 
-# CPU runs use the virtual 8-device mesh (conftest); the silicon run
-# (scripts/run_tpu_tests.py) has ONE real chip — the shard_map path
-# still executes there, on a 1-device mesh
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+# the virtual 8-device CPU mesh of conftest; fewer where fewer devices exist
 _NDEV = min(8, jax.device_count())
 
 
@@ -134,7 +136,7 @@ def test_sharded_kmer_counts_exact(rng):
 def test_graft_entry_points():
     import sys
 
-    sys.path.insert(0, "/root/repo")
+    sys.path.insert(0, REPO)
     import __graft_entry__ as G
     import jax
 
@@ -174,7 +176,7 @@ def test_auto_cap_skewed_minimizers(rng):
 
 
 def test_collective_stitch_equals_host_path(rng):
-    """VERDICT r1 item 4: the on-device boundary-stitch collective
+    """The on-device boundary-stitch collective
     (allgather of shard unitig end-kmer tables + one global node-level
     pointer-doubling round, SURVEY §7.6) must produce the SAME graph as
     the legacy host combine + compress_graph path — node-for-node,
@@ -209,7 +211,7 @@ def test_collective_stitch_equals_host_path(rng):
 
 
 def test_permutation_balances_skewed_minimizers(rng):
-    """VERDICT r4 missing #1: the load-balancing minimizer permutation
+    """The load-balancing minimizer permutation
     threaded through the sharded path (msp.rs:57-59, :298-311).  A
     poly-A-rich corpus makes the lexicographically-smallest p-mer the
     minimizer of most windows; the inverse-frequency score table must

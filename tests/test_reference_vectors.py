@@ -1,7 +1,6 @@
 """Reference-derived validation vectors, transcribed literally from the
 reference crate's doctests — NOT routed through the builder-authored
-oracle, so they pin behavior to the reference's own published examples
-(VERDICT r3 "missing" item 2).
+oracle, so they pin behavior to the reference's own published examples.
 
 Sources (input/output strings transcribed by hand):
   * /root/reference/src/kmer.rs:10-34        (crate-level Kmer16 doctest)

@@ -1,4 +1,4 @@
-"""Generic per-kmer data D through compression (VERDICT r3 missing item 1).
+"""Generic per-kmer data D through compression.
 
 The reference's CompressionSpec<D> is generic over ARBITRARY payload types
 with an arbitrary join_test predicate (compression.rs:34-38); e.g.
@@ -41,8 +41,7 @@ def _norm_nodes(nodes, data_fn):
 @pytest.mark.parametrize("stranded,min_obs", [(False, 1), (True, 1), (False, 2)])
 def test_colors_through_compression_vs_oracle(rng, stranded, min_obs):
     """CountFilterSet colors flow through compress_kmers_rich and match
-    the oracle running SimpleCompress(extend) + sort/dedup — the exact
-    'done' criterion of VERDICT item 3."""
+    the oracle running SimpleCompress(extend) + sort/dedup."""
     k = 16
     reads = _labeled_reads(rng)
     table, sets = F.filter_kmers_set(reads, k, stranded=stranded, min_obs=min_obs)

@@ -1,7 +1,7 @@
-"""tpu_debruijn: a TPU-native De Bruijn graph engine.
+"""tpu_debruijn: a data-parallel De Bruijn graph engine in JAX.
 
-A from-scratch JAX/XLA/Pallas rebuild of the capabilities of
-``10XGenomics/rust-debruijn`` (reference mounted at /root/reference).
+A from-scratch JAX/XLA rebuild of the capabilities of
+``10XGenomics/rust-debruijn``.
 
 Instead of the reference's hash maps and branchy pointer-chasing loops
 (``src/filter.rs``, ``src/compression.rs``), this engine uses:
@@ -21,7 +21,6 @@ Layout (maps onto the reference's layer map, see SURVEY.md section 1):
 * L5:    ``clean.py``, ``neighbors.py`` (graph walks live on DebruijnGraph)
 * io:    ``io/``                     (native C++ codec, FASTA/FASTQ, exports)
 * dist:  ``parallel/``               (MSP-bucket mesh; all_to_all exchange)
-* hot kernels: ``kernels/``          (Pallas; bitops_avx2.rs equivalents)
 * test oracle: ``oracle/``           (plain-Python reference reimplementation)
 """
 

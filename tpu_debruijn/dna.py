@@ -1,12 +1,13 @@
 """Packed DNA sequence containers (L2 host/IO layer).
 
 Capability-equivalent to the reference's DnaString / DnaStringSlice /
-PackedDnaStringSet (/root/reference/src/dna_string.rs:72-822): arbitrary
+PackedDnaStringSet (src/dna_string.rs:72-822): arbitrary
 length 2-bit packed sequences with slicing, reverse complement, kmer
 extraction, and a many-sequences-in-one-buffer set used as unitig storage.
 
 Storage is uint32 words, 16 bases per word, first base in the most
-significant bits (the TPU-native word size; the reference uses u64/32).
+significant bits (32-bit words like the device limbs; the reference uses
+u64/32).
 These are host-side containers — the device pipeline consumes the padded
 base matrices / limb arrays directly.
 """
@@ -404,7 +405,7 @@ class PackedSeqSet:
     The AUTHORITATIVE storage is 2-bit packed uint32 words (16 bases per
     word, MSB-first — the reference packs 32/u64, dna_string.rs:72), so a
     100M-base unitig store holds 25MB resident instead of 100MB of uint8
-    codes (VERDICT r3 missing item 3).  Appends queue uint8 chunks and
+    codes.  Appends queue uint8 chunks and
     are packed on consolidation (carrying a <16-base mid-word tail
     between consolidations); ``_flat()`` unpacks the whole stream
     TRANSIENTLY for one-shot bulk consumers (graph indexing, stitching,

@@ -5,8 +5,8 @@ lib.rs:569-749) and ``Dir`` (lib.rs:537-567).  One byte per kmer/node:
 bit layout ``T G C A | T G C A`` — high nibble = right extensions, low
 nibble = left extensions, bit b set means an extension with base b exists.
 
-All ops are elementwise on integer arrays (we carry the byte in int32 for
-TPU friendliness).  Scalar convenience wrappers (class ``Exts``) exist for
+All ops are elementwise on integer arrays (we carry the byte in int32,
+the lane width of every other per-kmer array).  Scalar convenience wrappers (class ``Exts``) exist for
 host-side/graph-API use.
 """
 

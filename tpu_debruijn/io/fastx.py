@@ -1,8 +1,8 @@
 """FASTA/FASTQ readers feeding the device pipeline.
 
 The reference library takes pre-parsed byte buffers (its pipelines parse
-files upstream); a standalone TPU framework needs its own fast reader to
-keep the chips fed.  Parsing/encoding runs in the native C++ codec when
+files upstream); a standalone device pipeline needs its own fast reader
+to keep the device fed.  Parsing/encoding runs in the native C++ codec when
 available (tpu_debruijn/io/native.py), with a pure-Python fallback.
 Supports plain and gzip files.
 """

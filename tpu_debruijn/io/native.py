@@ -1,24 +1,76 @@
 """ctypes bindings for the native host codec (native/debruijn_native.cpp).
 
-This is the TPU build's counterpart of the reference's AVX2 kernels
-(/root/reference/src/bitops_avx2.rs, used by DnaString::from_acgt_bytes,
+The host counterpart of the reference's AVX2 kernels
+(src/bitops_avx2.rs, used by DnaString::from_acgt_bytes,
 dna_string.rs:228-245): auto-vectorized C++ doing ASCII<->2-bit conversion,
 validation, and word packing on the host IO path, with a NumPy fallback
-when the shared library is missing.
+when the library cannot be built.
+
+The library is compiled from the committed source at first use, on the
+machine that loads it, into a path that git ignores.
 """
 
 from __future__ import annotations
 
 import ctypes
+import logging
 import os
+import subprocess
+import tempfile
 from typing import Optional, Tuple
 
 import numpy as np
+
+log = logging.getLogger("tpu_debruijn.io.native")
 
 _LIB: Optional[ctypes.CDLL] = None
 _TRIED = False
 
 _SO_PATH = os.path.join(os.path.dirname(__file__), "libdebruijn_native.so")
+_SRC = os.path.join(
+    os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
+    "native", "debruijn_native.cpp",
+)
+# portable code: no -march=native, so a library built on one host never
+# meets an instruction another host lacks
+_CXXFLAGS = ["-O3", "-fPIC", "-std=c++17", "-shared", "-Wall", "-Wextra"]
+
+
+def _build() -> bool:
+    """Compile the codec into ``_SO_PATH`` unless an up-to-date one exists.
+
+    The compiler writes a temporary file in the same directory, which is
+    then renamed over ``_SO_PATH``: the rename is atomic, so processes
+    racing to build at first use each load a complete library.
+    """
+    if not os.path.exists(_SRC):
+        return os.path.exists(_SO_PATH)
+    if (os.path.exists(_SO_PATH)
+            and os.path.getmtime(_SO_PATH) >= os.path.getmtime(_SRC)):
+        return True
+    cxx = os.environ.get("CXX", "g++")
+    tmp = None
+    try:
+        fd, tmp = tempfile.mkstemp(
+            prefix=".libdebruijn_native.", suffix=".so",
+            dir=os.path.dirname(_SO_PATH),
+        )
+        os.close(fd)
+        res = subprocess.run(
+            [cxx, *_CXXFLAGS, "-o", tmp, _SRC], capture_output=True, text=True
+        )
+        if res.returncode != 0:
+            log.warning("native codec build failed; using NumPy:\n%s",
+                        res.stderr[-2000:])
+            return False
+        os.replace(tmp, _SO_PATH)
+        return True
+    except OSError as exn:
+        log.warning("native codec build failed (%s); using NumPy", exn)
+        return False
+    finally:
+        if tmp is not None and os.path.exists(tmp):
+            os.unlink(tmp)
 
 
 def _load():
@@ -26,6 +78,8 @@ def _load():
     if _TRIED:
         return _LIB
     _TRIED = True
+    if not _build():
+        return None
     try:
         lib = ctypes.CDLL(_SO_PATH)
         u8p = ctypes.POINTER(ctypes.c_uint8)

@@ -1,7 +1,7 @@
 """Fixed-K kmer arithmetic on uint32 limb vectors (L2 core).
 
 Capability-equivalent to the reference's ``IntKmer``/``VarIntKmer`` types
-(/root/reference/src/kmer.rs:230-824) but designed for TPU vector lanes:
+(src/kmer.rs:230-824) but designed for 32-bit vector lanes:
 
 * A kmer of K bases (2 <= K <= 64) is a 2K-bit integer stored in
   ``W = ceil(K/16)`` uint32 limbs, **most-significant limb first**, with the
@@ -11,7 +11,7 @@ Capability-equivalent to the reference's ``IntKmer``/``VarIntKmer`` types
   lexicographically == comparing kmer strings lexicographically.
 * Every operation (shift-extend, reverse-complement, canonicalize, hamming,
   palindrome) is a branch-free elementwise uint32 computation over arrays of
-  shape (..., W) — this is the TPU-native replacement for the reference's
+  shape (..., W) — this is the data-parallel replacement for the reference's
   per-int-width bit kernels (``reverse_by_twos`` ladders, kmer.rs:97-228).
 
 All functions take/return jax arrays but are also numpy-compatible (the ops

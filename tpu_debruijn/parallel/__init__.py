@@ -9,7 +9,8 @@ becomes a first-class SPMD pipeline:
 * reads are data-parallel over a 1-D ``Mesh`` axis ("shards"),
 * each device scans its reads (vectorized MSP), assigns every interval to
   ``bucket mod n_shards``, and exchanges interval substrings with an
-  ``all_to_all`` over ICI,
+  ``all_to_all`` over the device interconnect (NVLink between the GPUs of
+  one host),
 * each device counts/filters its buckets' kmers locally (exact global
   counts — MSP guarantees every occurrence of a kmer lands in one bucket),
 * shard unitig graphs are combined and re-compressed globally

@@ -19,8 +19,8 @@ def make_mesh(n_devices: Optional[int] = None, devices: Optional[Sequence] = Non
     """A 1-D mesh over ``n_devices`` (default: all available).
 
     MSP buckets are hashed onto this axis; reads stream data-parallel over
-    it.  On real hardware the axis should be laid out over ICI (the default
-    device order on a TPU slice is ICI-contiguous).
+    it.  The GPUs of one host are joined all to all by NVLink, so the
+    device order does not matter.
     """
     if devices is None:
         devices = jax.devices()

@@ -1,9 +1,10 @@
-"""Multi-host orchestration: the same MSP-bucket pipeline over DCN+ICI.
+"""Multi-host orchestration: the same MSP-bucket pipeline across hosts.
 
-The single-host pipeline (shard.py) is already SPMD over a 1-D mesh; on a
-multi-host slice the identical program runs under ``jax.distributed`` —
+The single-host pipeline (shard.py) is already SPMD over a 1-D mesh; on
+several hosts the identical program runs under ``jax.distributed`` —
 the mesh spans every host's devices and the ``all_to_all`` bucket exchange
-rides ICI within a host and DCN across hosts.  Reads are fed
+rides the intra-host interconnect (NVLink between GPUs) within a host and
+the network across hosts.  Reads are fed
 process-local (each host reads its own FASTQ chunk), which is exactly the
 data-parallel input sharding the plan's ``in_specs=P(SHARDS)`` expects.
 
@@ -44,8 +45,8 @@ def local_read_slice(paths: Sequence[str]) -> List[str]:
 
 
 def global_mesh():
-    """1-D mesh over every device of every process (ICI-contiguous order
-    within hosts; the shard axis crosses DCN at host boundaries)."""
+    """1-D mesh over every device of every process, in process order (the
+    shard axis crosses the network at host boundaries)."""
     from tpu_debruijn.parallel.mesh import SHARDS
     from jax.sharding import Mesh
 

@@ -166,7 +166,7 @@ def sharded_count_step(plan: ShardPlan, data_reduce: str = "label_first",
 
 
 def _global_stitch_device(plan: ShardPlan, kmers, chains, u_exts):
-    """The SURVEY §7.6 boundary-stitch collective (VERDICT r1 item 4).
+    """The SURVEY §7.6 boundary-stitch collective.
 
     After per-shard kmer-level compression, allgather every shard's unitig
     end-kmer/end-exts/length table over the mesh and run ONE global

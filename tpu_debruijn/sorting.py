@@ -1,5 +1,5 @@
-"""Sort-based join primitives: the TPU replacement for the reference's
-hash maps (boomphf) and per-bucket sorts (filter.rs:206).
+"""Sort-based join primitives: the data-parallel replacement for the
+reference's hash maps (boomphf) and per-bucket sorts (filter.rs:206).
 
 * multi-limb lexicographic sort (``jax.lax.sort`` with num_keys)
 * vectorized binary search over sorted limb arrays (replaces
@@ -98,8 +98,8 @@ _JOIN_FLAG = np.int32(1 << 30)
 def sort_join_limbs(sorted_limbs, n_valid, query_limbs, table_vals=None):
     """Exact-match join of queries against a sorted kmer table via ONE sort.
 
-    Replaces per-query binary search (log2(n) random row gathers — the
-    gathers, not the compares, dominate on TPU) with a single stable sort
+    Replaces per-query binary search (log2(n) random row gathers, assumed
+    to dominate over the compares) with a single stable sort
     over table+queries, a packed segmented copy scan, and one scatter.
 
     Args:
@@ -168,8 +168,8 @@ def sort_join_limbs(sorted_limbs, n_valid, query_limbs, table_vals=None):
 
     if _JOIN_UNPERMUTE[0] == "sort":
         # un-permute by ONE unstable 2-lane sort on the unique row id —
-        # rows n..tot-1 are the queries in original order (scatters lower
-        # poorly on TPU; A/B vs the scatter path via _JOIN_UNPERMUTE)
+        # rows n..tot-1 are the queries in original order (A/B vs the
+        # scatter path via _JOIN_UNPERMUTE)
         sout = jax.lax.sort([own, res], num_keys=1, is_stable=False)
         gathered = sout[1][n:]
     else:
@@ -187,8 +187,7 @@ def sort_join_limbs(sorted_limbs, n_valid, query_limbs, table_vals=None):
 
 # join un-permute strategy: "scatter" (one q-row scatter) or "sort" (one
 # unstable 2-lane sort over n+q rows).  Module-level so benches can A/B.
-# Default "sort": measured 16.2ms vs 26.8ms for the whole join at
-# n=1M/q=2.1M on v5e (artifacts/microbench_compress2.json).
+# Default "sort" is inherited and unconfirmed on the GPU (see ROADMAP).
 _JOIN_UNPERMUTE = ["sort"]
 
 
@@ -234,8 +233,8 @@ def segment_min(vals, seg, n, init):
 def segment_or8(vals, seg, n):
     """Segmented bitwise-OR of 8-bit values (the Exts fold, filter.rs:53-59).
 
-    One 1-lane max-scatter per bit — a packed (n, 8) row scatter is ~17x
-    slower on TPU (artifacts/microbench_compress2.json)."""
+    One 1-lane max-scatter per bit in place of one packed (n, 8) row
+    scatter (assumed slower; untested on the GPU, see ROADMAP)."""
     acc = jnp.zeros(n, vals.dtype)
     for b in range(8):
         bit = (vals >> b) & 1
@@ -255,9 +254,9 @@ def partition(mask, arrays):
     """Stable partition via one sort: rows with mask move to the front,
     preserving order.  Returns (count, arrays).
 
-    On TPU this is ~8x faster than the scatter-based ``compact`` (XLA
-    lowers scatters poorly; sorts are native).  The key is the row index
-    with the mask in the top bit — keys are UNIQUE, so the ~2x-faster
+    Chosen over the scatter-based ``compact`` on the assumption that
+    sorts beat scatters (untested on the GPU, see ROADMAP).  The key is
+    the row index with the mask in the top bit — keys are UNIQUE, so the
     unstable sort is still deterministic and order-preserving within both
     groups.  Tail slots hold the unselected rows (NOT a fill value) —
     callers must bound by count.
@@ -317,10 +316,8 @@ def seg_or_suffix8(vals, is_end):
     """At each element: bitwise-OR of ``vals`` from the element through its
     segment's END (segments delimited by ``is_end`` flags), for 8-bit
     values.  The whole segmented scan runs as ONE packed int32
-    associative scan (flag in bit 8) — ~5x cheaper on TPU than the
-    generic tuple-combinator scan, which moves multiple arrays per pass.
-    (A chunked two-level variant was measured NOT faster on v5e:
-    1.54ms vs 1.42ms flat at 1M — artifacts/probe_sort3.json.)
+    associative scan (flag in bit 8) in place of the generic
+    tuple-combinator scan, which moves multiple arrays per pass.
     """
     x = (is_end[::-1].astype(jnp.int32) << 8) | (vals[::-1] & 0xFF)
 
@@ -355,9 +352,8 @@ def compact(mask, arrays, fill=0):
     outs = []
     for a in arrays:
         if a.ndim == 2:
-            # one scatter PER COLUMN: XLA's multi-lane row scatter is
-            # pathological on TPU (~17x a 1-lane scatter at 2M rows,
-            # artifacts/microbench_compress2.json)
+            # one scatter PER COLUMN in place of one multi-lane row
+            # scatter (assumed slower; untested on the GPU, see ROADMAP)
             cols = [
                 jnp.full(a.shape[:1], fill, a.dtype)
                 .at[idx]
